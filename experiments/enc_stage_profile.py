@@ -1,4 +1,4 @@
-"""Per-stage timing of the device encoder on the real chip.
+"""Per-stage timing of the device encoder on the accelerator.
 
 _encode_block has stage=1..7 early-return hooks (plus stage=9 after
 the HC post-parse extension/absorb); timing the cumulative prefixes
@@ -8,10 +8,12 @@ attributes cost to each pipeline stage:
   5 +compact/coalesce/budgets  6 +merge1 literal fill
   7 +pools/grand placement     0 full
 
-Args: [B] [lvlN] -- e.g. `enc_stage_profile.py 64 lvl9` profiles the
-level-9 HC configuration.
+Args: [B] [lvlN] [stages=a,b,..] -- e.g. `enc_stage_profile.py 8 lvl9`
+profiles the level-9 HC configuration at the frame path's one-card
+batch; `stages=3,4,0` times only those prefixes (each is a compile).
 """
 import functools
+import os
 import sys
 import time
 
@@ -19,13 +21,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 import zig_lz4_tpu.ops.jax_block as jb  # noqa: E402
 from bench import make_corpus  # noqa: E402
 
 BLK = 65536
-args = [a for a in sys.argv[1:] if not a.startswith("lvl")]
+args = [a for a in sys.argv[1:] if a[:3] not in ("lvl", "sta")]
 lvls = [a for a in sys.argv[1:] if a.startswith("lvl")]
+picked = [a[7:] for a in sys.argv[1:] if a.startswith("stages=")]
 HC, DEEP = jb.level_params(int(lvls[0][3:])) if lvls else (0, 0)
 B = int(args[0]) if args else 64
 corpus = make_corpus(max(12, B * BLK // (1 << 20) + 2))
@@ -36,12 +40,14 @@ db = jax.device_put(blocks)
 dl = jax.device_put(lens)
 ds = jax.device_put(starts)
 
-print(f"devices: {jax.devices()}  B={B}", flush=True)
+print(f"devices: {jax.devices()}  B={B} hc={HC} deep={DEEP}", flush=True)
 
 prev = 0.0
 stages = ((11, 12, 1, 2, 3, 4, 9, 5, 6, 7, 0) if DEEP
           else (12, 1, 2, 3, 4, 9, 5, 6, 7, 0) if HC
           else (12, 1, 2, 3, 4, 5, 6, 7, 0))
+if picked:
+    stages = tuple(int(x) for x in picked[0].split(","))
 for stage in stages:
     fn = jax.jit(jax.vmap(functools.partial(
         jb._encode_block, blk=BLK, stage=stage, hc=HC, deep=DEEP)))

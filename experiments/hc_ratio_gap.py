@@ -9,7 +9,7 @@ PARSE (sequence granularity, lazy depth, price model).
 
 Run: python experiments/hc_ratio_gap.py [cpu]   (cpu = run the device
 algorithm on the CPU backend -- bit-identical output, slower wall
-clock, no chip needed; default uses the attached TPU)
+clock, no accelerator needed; default uses JAX's default backend)
 """
 import functools
 import os
@@ -20,7 +20,8 @@ if "cpu" in sys.argv[1:]:
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 import jax  # noqa: E402
 
 if "cpu" in sys.argv[1:]:

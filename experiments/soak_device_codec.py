@@ -3,11 +3,11 @@ random history splits and five content kinds, every stream
 cross-decoded by the native/oracle host decoder.
 
 Run: python experiments/soak_device_codec.py [seconds]  (default 1500)
-Round-4 result: 464 trials, 11 level configs, 0 failures on the
-attached v5e chip.  Failing windows are dumped to /tmp for replay.
+Failing windows are dumped to the temp directory for replay.
 """
-import sys, time
-sys.path.insert(0, "/root/repo")
+import os, sys, tempfile, time
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 import numpy as np
 import zig_lz4_tpu.ops.jax_block as jb
 from zig_lz4_tpu.native import native_decompress, native_compress_fast
@@ -69,5 +69,6 @@ while time.time() < t_end:
         if got != want:
             fails += 1
             print(f"FAIL lvl={lvl} hist={hist} n={n} kind?", flush=True)
-            np.save(f"/tmp/soak_fail_{trials}.npy", wins[k])
+            np.save(os.path.join(tempfile.gettempdir(),
+                                 f"soak_fail_{trials}.npy"), wins[k])
 print(f"soak done: {trials} trials, {fails} failures, {len(encs)} level configs")

@@ -1,5 +1,5 @@
 """Direct cost attribution: sort passes vs operand count vs cand_at
-compute vs cummax, on the real chip at B=64 x 64K rows."""
+compute vs cummax, on the accelerator at B=64 x 64K rows."""
 import sys
 import time
 

@@ -7,6 +7,8 @@ import random
 import subprocess
 import sys
 
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 import pytest
 
 from zig_lz4_tpu import frame as lz4f
@@ -94,20 +96,22 @@ def test_cli_subprocess_stdout(sample, tmp_path):
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run(
         [sys.executable, "-m", "zig_lz4_tpu.cli", "-c", "-q", str(p)],
-        capture_output=True, env=env, cwd="/root/repo", timeout=600)
+        capture_output=True, env=env, cwd=_ROOT, timeout=600)
     assert r.returncode == 0, r.stderr[-500:]
     assert lz4f.decompress_frame(r.stdout) == data
 
 
 def test_cli_tpu_decode_engines(sample, tmp_path):
-    """--engine tpu with both device decode engines (windowed tiers
-    and pointer-doubling chase) restores the frame bit-exact."""
+    """--engine device with the default T-map decode and the two
+    fragment engines (windowed tiers and pointer-doubling chase)
+    restores the frame bit-exact."""
     p, data = sample
     dst = tmp_path / "dev.lz4"
-    assert main(["-4", "-f", "-q", "--engine", "tpu",
+    assert main(["-4", "-f", "-q", "--engine", "device",
                  str(p), str(dst)]) == 0
-    for eng in ("win", "chase"):
+    for eng in (None, "win", "chase"):
         out = tmp_path / f"restored_{eng}.bin"
-        assert main(["-d", "-f", "-q", "--engine", "tpu",
-                     "--decode-engine", eng, str(dst), str(out)]) == 0
+        flags = ["--decode-engine", eng] if eng else []
+        assert main(["-d", "-f", "-q", "--engine", "device", *flags,
+                     str(dst), str(out)]) == 0
         assert out.read_bytes() == data

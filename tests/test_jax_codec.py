@@ -1,5 +1,5 @@
 """JAX vectorized codec tests (runs on CPU backend; same code compiles
-for TPU).  Cross-validation against the oracle block codec:
+for the GPU).  Cross-validation against the oracle block codec:
   * JAX-encoded blocks must decode with the oracle decoder.
   * oracle-encoded blocks must decode with the JAX device decoder.
 """
@@ -188,9 +188,8 @@ def test_hc_mode_roundtrip_and_ratio():
     output stays wire-decodable at every probe depth and within a few
     bytes of fast mode on tiny blocks.  (At 4KB the fast finder's
     chain extension already recovers most long matches; the HC win is
-    a 64KB-scale effect -- +28%..34% corpus ratio measured on-chip,
-    experiments/enc_hc_sweep.py -- which CPU-backend unit tests cannot
-    afford to compile.)  reference quality target: lz4hc.zig:514-681."""
+    a 64KB-scale effect -- +28%..34% corpus ratio on the bench corpus
+    -- which CPU-backend unit tests cannot afford to compile.)  reference quality target: lz4hc.zig:514-681."""
     import numpy as np
     from zig_lz4_tpu import decompress_safe
     from zig_lz4_tpu.ops.jax_block import make_block_encoder
@@ -228,14 +227,14 @@ def test_hc_mode_roundtrip_and_ratio():
         tot0 += len(c0)
         tot4 += len(c4)
     # tiny-block aggregate must stay within noise of the fast parse
-    # (the corpus-level ratio WIN is asserted by the on-chip sweep /
-    # bench, not compile-heavy CPU unit tests)
+    # (the corpus-level ratio WIN is asserted by
+    # test_hc_ratio_beats_fast_64k and the bench, not here)
     assert tot4 <= tot0 * 1.05 + 8, (tot4, tot0)
 
 
 def test_tpu_codec_level_registry():
     from zig_lz4_tpu.models.codec import get_codec
-    c = get_codec("tpu9")
+    c = get_codec("device9")
     assert c.level == 9
     data = b"registry level test " * 40
     assert c.decompress(c.compress(data), len(data)) == data
@@ -268,8 +267,8 @@ def test_fuzz_hc_history_roundtrip():
     every stream must decode bit-exact with the oracle dict decoder.
     The extension pass moves/drops selections after the greedy parse,
     so this guards its coverage-repair invariants (disjoint matches,
-    valid trimmed tails) under start > 0 too.  Since the round-3
-    on-chip A/B the extension only runs at deep levels (>= 10), so the
+    valid trimmed tails) under start > 0 too.  The extension only runs
+    at deep levels (>= 10), so the
     fuzz encoder uses a deep config (hc=4, deep=1) to keep the
     extension + absorb + deep-rank paths under fuzz."""
     import numpy as np

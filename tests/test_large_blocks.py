@@ -64,9 +64,8 @@ def _wordy_corpus(n: int) -> bytes:
     # word-salad English text (the bench corpus's largest component):
     # the nearest-occurrence fast finder keeps latching onto short
     # nearby 4-grams while the HC suffix-order finder recovers long
-    # multi-word matches -- the workload where the measured +34% HC
-    # ratio win comes from (experiments/enc_hc_sweep.py; re-measured
-    # hc/fast = 0.652 on exactly this generator)
+    # multi-word matches -- the workload where the +34% HC ratio win
+    # comes from (hc/fast = 0.652 on exactly this generator)
     rng = np.random.default_rng(42)
     words = [b"the", b"of", b"and", b"to", b"in", b"that", b"was",
              b"his", b"he", b"it", b"with", b"is", b"for", b"as",
@@ -81,7 +80,7 @@ def _wordy_corpus(n: int) -> bytes:
 def test_hc_ratio_beats_fast_64k():
     """The flagship round-2 feature (device HC finder) must keep its
     ratio win: >= 15% smaller output than fast mode on wordy text
-    (measured effect is ~+34%, experiments/enc_hc_sweep.py)."""
+    (the effect on the bench corpus is ~+34%)."""
     blk = 65536
     data = _wordy_corpus(blk)
     buf = np.zeros((1, blk), np.uint8)
@@ -101,7 +100,6 @@ def _codeish(n: int) -> bytes:
     # exact ends sit far past the finder's fine-window ceiling -- the
     # content type where the round-3 post-parse extension/absorb pass
     # recovers ~10% of the block in truncated match extensions
-    # (experiments/code_split_diag.py)
     rng = np.random.default_rng(0xC0FFEE)
     lines = [b"    if (state->pos + len > state->cap) return -1;",
              b"    memcpy(dst + op, src + ip, run_length);",
@@ -117,7 +115,7 @@ def test_extension_absorb_code_16k():
     parse must leave (almost) no same-offset extension bytes on the
     table.  Pre-fix state: 62-65% of matches truncated on this
     content, output 1.22x native HC9; post-fix: ~0% truncated, within
-    1.25x (experiments/code_split_diag.py).  reference semantics:
+    1.25x.  reference semantics:
     serial parsers measure match ends exactly, lz4hc.zig:514-681."""
     from zig_lz4_tpu.native import native_compress_hc_blocks
     from zig_lz4_tpu.ops.jax_block import parse_sequences

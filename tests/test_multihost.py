@@ -1,7 +1,7 @@
 """Multi-host frame layer (single-process path; the process-allgather
 degenerates to identity, the rest of the pipeline -- host-major block
-spans, local chip-parallel encode, ordered gather, frame serialization
--- is identical to a real pod run)."""
+spans, local device-parallel encode, ordered gather, frame
+serialization -- is identical to a multi-host run)."""
 
 import random
 

@@ -1,11 +1,13 @@
-"""zig_lz4_tpu -- a TPU-native LZ4 compression framework.
+"""zig_lz4_tpu -- an accelerator-native LZ4 compression framework.
 
 A from-scratch re-design of the capabilities of the reference
-implementation (jedisct1/zig-lz4, a pure-Zig CPU LZ4 library) for TPU
-hardware: the block codec, HC modes (levels 2-12), the LZ4 frame
-format with xxHash32 checksums, streaming with a 64KB window, and
-external dictionaries -- built on JAX/XLA/Pallas for the compute path,
-with a C++ native host runtime and a bit-exact Python oracle.
+implementation (jedisct1/zig-lz4, a pure-Zig CPU LZ4 library) for an
+accelerator (an NVIDIA GPU) driven through JAX: the block codec, HC
+modes (levels 2-12), the LZ4 frame format with xxHash32 checksums,
+streaming with a 64KB window, and external dictionaries -- built on
+JAX/XLA for the compute path, with a C++ native host runtime and a
+bit-exact Python oracle.  The package name is kept for import
+stability.
 
 Public facade mirrors the reference's flat namespace
 (reference: src/root.zig:1-57).

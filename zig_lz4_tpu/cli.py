@@ -5,7 +5,7 @@ The reference ships an ``lz4`` executable that only runs a self-test
 file compressor producing/consuming standard LZ4 frames, modeled on
 the flags of Yann Collet's lz4(1):
 
-  lz4-tpu [flags] [input] [output]
+  zig-lz4 [flags] [input] [output]
 
     -1 .. -12      compression level (0/1 = fast, 2..12 = HC)
     -d             decompress
@@ -19,13 +19,15 @@ the flags of Yann Collet's lz4(1):
     --no-frame-crc drop the content checksum
     --block-crc    add per-block checksums
     --content-size embed the content size in the header
-    --engine E     host | tpu | oracle   (default host)
-    --decode-engine mixed | win | chase   device decode engine (tpu only)
+    --engine E     host | device | oracle   (default host)
+    --decode-engine tmap | mixed | win | chase
+                   device decode engine (--engine device only;
+                   default tmap, as ShardedFrameCodec)
     --self-test    run the library smoke suite and exit
     -v / -q        verbosity
 
 With no input (or "-"), reads stdin; with no output, appends/strips
-``.lz4``.  ``--engine tpu`` routes blocks through the sharded device
+``.lz4``.  ``--engine device`` routes blocks through the sharded device
 codec (ShardedFrameCodec).
 """
 
@@ -39,8 +41,8 @@ import time
 
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="lz4-tpu", add_help=True,
-        description="TPU-native LZ4 frame compressor")
+        prog="zig-lz4", add_help=True,
+        description="LZ4 frame compressor with a JAX device codec")
     p.add_argument("input", nargs="?", default="-")
     p.add_argument("output", nargs="?", default=None)
     for lv in range(1, 13):
@@ -66,16 +68,15 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--block-crc", dest="block_checksum",
                    action="store_true", default=False)
     p.add_argument("--content-size", action="store_true")
-    p.add_argument("--engine", choices=("host", "tpu", "oracle"),
+    p.add_argument("--engine", choices=("host", "device", "oracle"),
                    default="host")
     p.add_argument("--decode-engine",
-                   choices=("mixed", "win", "chase"),
-                   default="mixed",
-                   help="device decode engine for --engine tpu: "
-                        "mixed per-tier winners (default), windowed "
-                        "tiers, or pointer-doubling "
-                        "chase (log-depth; covers deep chains and "
-                        "1MB-2MB blocks)")
+                   choices=("tmap", "mixed", "win", "chase"),
+                   default="tmap",
+                   help="device decode engine for --engine device: "
+                        "tmap one-merge decode (default), the mixed "
+                        "fragment ladder, windowed tiers, or "
+                        "pointer-doubling chase")
     p.add_argument("-D", "--dictionary", default=None,
                    help="dictionary file (last 64KB used)")
     p.add_argument("--self-test", action="store_true")
@@ -99,9 +100,15 @@ def _write(path: str | None, data: bytes, force: bool,
         sys.stdout.buffer.flush()
         return
     if os.path.exists(path) and not force:
-        raise SystemExit(f"lz4-tpu: {path} already exists; use -f")
+        raise SystemExit(f"zig-lz4: {path} already exists; use -f")
     with open(path, "wb") as f:
         f.write(data)
+
+
+def _routes(codec) -> str:
+    """Verbose suffix naming the blocks each device-codec route took."""
+    return " routes " + " ".join(f"{k}={v}" for k, v in
+                                 sorted(codec.routes.items()))
 
 
 def _self_test() -> int:
@@ -118,7 +125,7 @@ def _self_test() -> int:
         assert decompress_safe(compress_default(d), len(d)) == d
         assert decompress_safe(compress_hc(d, 9), len(d)) == d
         assert lz4f.decompress_frame(lz4f.compress_frame(d)) == d
-    print("lz4-tpu: self-test OK (block fast/HC + frame round-trips)")
+    print("zig-lz4: self-test OK (block fast/HC + frame round-trips)")
     return 0
 
 
@@ -136,19 +143,20 @@ def main(argv=None) -> int:
 
     data = _read(inp)
     t0 = time.perf_counter()
+    routes = ""
 
     if decompress:
         try:
-            if args.engine == "tpu":
+            if args.engine == "device":
                 from .parallel.sharded import ShardedFrameCodec
-                out = ShardedFrameCodec(
-                    decode_engine=args.decode_engine).decompress_frame(
-                        data)
+                codec = ShardedFrameCodec(decode_engine=args.decode_engine)
+                out = codec.decompress_frame(data)
+                routes = _routes(codec)
             else:
                 dict_ = _read(args.dictionary) if args.dictionary else None
                 out = lz4f.decompress_frame(data, dictionary=dict_)
         except LZ4Error as e:
-            print(f"lz4-tpu: {inp}: {type(e).__name__}: {e}",
+            print(f"zig-lz4: {inp}: {type(e).__name__}: {e}",
                   file=sys.stderr)
             return 1
         dt = time.perf_counter() - t0
@@ -163,7 +171,7 @@ def main(argv=None) -> int:
         _write(dst, out, args.force, args.stdout)
         if args.verbose and not args.quiet:
             print(f"{inp}: {len(data)} -> {len(out)} bytes "
-                  f"({len(out)/max(dt,1e-9)/1e6:.1f} MB/s)",
+                  f"({len(out)/max(dt,1e-9)/1e6:.1f} MB/s){routes}",
                   file=sys.stderr)
         return 0
 
@@ -179,7 +187,7 @@ def main(argv=None) -> int:
     prefs = lz4f.Preferences(frame_info=info,
                              compression_level=(0 if args.level <= 1
                                                 else args.level))
-    if args.engine == "tpu":
+    if args.engine == "device":
         from .parallel.sharded import ShardedFrameCodec
         codec = ShardedFrameCodec(
             block_size_id=lz4f.BlockSizeID(args.bsid),
@@ -187,6 +195,7 @@ def main(argv=None) -> int:
             block_checksum=args.block_checksum,
             compression_level=(0 if args.level <= 1 else args.level))
         out = codec.compress_frame(data)
+        routes = _routes(codec)
     else:
         dict_ = _read(args.dictionary) if args.dictionary else None
         out = lz4f.compress_frame(data, prefs, dictionary=dict_)
@@ -197,7 +206,7 @@ def main(argv=None) -> int:
         ratio = len(data) / max(len(out), 1)
         print(f"{inp}: {len(data)} -> {len(out)} bytes (ratio {ratio:.3f}, "
               f"{len(data)/max(dt,1e-9)/1e6:.1f} MB/s, level {args.level}, "
-              f"engine {args.engine})", file=sys.stderr)
+              f"engine {args.engine}){routes}", file=sys.stderr)
     return 0
 
 

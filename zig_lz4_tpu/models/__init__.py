@@ -2,8 +2,8 @@ from .codec import (
     BlockCodec,
     FastCodec,
     HCCodec,
-    TPUCodec,
+    DeviceCodec,
     get_codec,
 )
 
-__all__ = ["BlockCodec", "FastCodec", "HCCodec", "TPUCodec", "get_codec"]
+__all__ = ["BlockCodec", "FastCodec", "HCCodec", "DeviceCodec", "get_codec"]

@@ -9,7 +9,7 @@ benchmarks) can treat them interchangeably:
   * FastCodec  -- greedy hash-table matcher (levels <= 0;
                   acceleration = 1 - level).  Host: C++ native/oracle.
   * HCCodec    -- MID / hash-chain / optimal strategies (levels 2-12).
-  * TPUCodec   -- the vectorized XLA codec (ops/jax_block): the
+  * DeviceCodec -- the vectorized XLA codec (ops/jax_block): the
                   flagship family, one block per vmap lane.
 
 All families emit interchangeable LZ4 block bytes; any decoder decodes
@@ -22,7 +22,7 @@ from .. import backend
 from ..constants import compress_bound
 from ..ops import hc as _hc
 
-__all__ = ["BlockCodec", "FastCodec", "HCCodec", "TPUCodec", "get_codec"]
+__all__ = ["BlockCodec", "FastCodec", "HCCodec", "DeviceCodec", "get_codec"]
 
 
 class BlockCodec:
@@ -58,7 +58,7 @@ class HCCodec(BlockCodec):
         return _hc.compress_hc(data, self.level, max_output=max_output)
 
 
-class TPUCodec(BlockCodec):
+class DeviceCodec(BlockCodec):
     """Vectorized XLA block codec; one device call per compress.
 
     ``level`` <= 1 selects the fast finder; 2..12 the HC-class
@@ -111,12 +111,10 @@ class TPUCodec(BlockCodec):
 
 def get_codec(level: int | str = 0) -> BlockCodec:
     """Level dispatch mirroring the frame layer's rules
-    (reference: src/lz4f.zig:393-404): <= 0 fast, >= 1 HC; "tpu" for
-    the vectorized family."""
-    if level == "tpu":
-        return TPUCodec()
-    if isinstance(level, str) and level.startswith("tpu"):
-        return TPUCodec(level=int(level[3:] or 1))
+    (reference: src/lz4f.zig:393-404): <= 0 fast, >= 1 HC; "device"
+    (optionally with a level, "device9") for the vectorized family."""
+    if isinstance(level, str) and level.startswith("device"):
+        return DeviceCodec(level=int(level[6:] or 1))
     level = int(level)
     if level <= 0:
         return FastCodec(1 - level)

@@ -1,28 +1,42 @@
 """C++ native host runtime loader.
 
-Compiles zig_lz4_tpu/native/lz4tpu_native.cpp to a shared library on
-first import (cached next to the source) and exposes ctypes wrappers.
-Everything degrades gracefully to the pure-Python oracle when a
-compiler is unavailable (set ZIG_LZ4_TPU_NO_NATIVE=1 to force that).
+Compiles zig_lz4_tpu/native/lz4tpu_native.cpp into a shared library on
+first use and exposes ctypes wrappers.  The library lands in the
+git-ignored ``_build/`` directory under a name keyed by the source's
+content hash and the compiler flags, so an edited source is always
+rebuilt and a copied tree never loads a binary built from other code.
+The flags name no host CPU (no ``-march=native``), so a library built on
+one x86-64 host runs on another.
+
+The host-only entry points degrade to the pure-Python oracle when the
+library cannot be built (set ZIG_LZ4_TPU_NO_NATIVE=1 to force that);
+the device decode path in parallel/sharded.py needs the library and
+raises without it.
 
 The native codec is bit-identical to the oracle (tests enforce it);
 it exists so frame serialization, checksums and the decode-path
-sequence parsing run at memory bandwidth on the host while the TPU
+sequence parsing run at memory bandwidth on the host while the device
 does the vectorized heavy lifting.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
 import subprocess
 import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "lz4tpu_native.cpp")
-_SO = os.path.join(_HERE, "liblz4tpu_native.so")
+#: build output directory (listed in .gitignore)
+_BUILD_DIR = os.path.join(_HERE, "_build")
+_CXXFLAGS = ("-O3", "-shared", "-fPIC", "-pthread")
 
 _lib = None
+#: why the last load attempt failed (None when loaded or not yet tried)
+_load_error: str | None = None
 #: (key, arrays) cache for native_resolve_blocks output buffers
 _resolve_bufs = None
 #: bumped on every reuse-mode resolve (stale-view guard rail)
@@ -38,22 +52,45 @@ _lock = threading.Lock()
 _tried = False
 
 
-def _build() -> bool:
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-           "-pthread", "-o", _SO, _SRC]
-    try:
-        r = subprocess.run(cmd, capture_output=True, timeout=240)
-        if r.returncode != 0:
-            # retry without -march=native (portability)
-            cmd.remove("-march=native")
-            r = subprocess.run(cmd, capture_output=True, timeout=240)
-        return r.returncode == 0
-    except (OSError, subprocess.SubprocessError):
-        return False
+def library_path(src: str = _SRC, build_dir: str = _BUILD_DIR) -> str:
+    """Where the library built from ``src`` lives: the file name carries
+    a hash of the source bytes and the compiler flags."""
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(_CXXFLAGS).encode())
+    return os.path.join(build_dir,
+                        f"liblz4tpu_native-{h.hexdigest()[:16]}.so")
+
+
+def build(src: str = _SRC, build_dir: str = _BUILD_DIR) -> str:
+    """Compile ``src`` unless its hash-named library exists; returns the
+    library path.  Concurrent processes serialize on a lock file, and
+    the compiler writes a temporary name that is renamed into place, so
+    no process ever loads a half-written library.  Raises
+    ``subprocess.CalledProcessError`` / ``OSError`` when g++ fails or is
+    missing."""
+    so = library_path(src, build_dir)
+    if os.path.exists(so):
+        return so
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(build_dir, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(so):
+            tmp = f"{so}.{os.getpid()}.tmp"
+            try:
+                subprocess.run(["g++", *_CXXFLAGS, "-o", tmp, src],
+                               check=True, capture_output=True,
+                               timeout=600)
+                os.replace(tmp, so)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+    return so
 
 
 def _load():
-    global _lib, _tried
+    global _lib, _tried, _load_error
     if _lib is not None or _tried:
         return _lib
     with _lock:
@@ -61,14 +98,16 @@ def _load():
             return _lib
         _tried = True
         if os.environ.get("ZIG_LZ4_TPU_NO_NATIVE"):
+            _load_error = "ZIG_LZ4_TPU_NO_NATIVE is set"
             return None
-        if (not os.path.exists(_SO)
-                or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-            if not _build():
-                return None
         try:
-            lib = ctypes.CDLL(_SO)
-        except OSError:
+            lib = ctypes.CDLL(build())
+        except subprocess.CalledProcessError as e:
+            _load_error = ("g++ failed: "
+                           + e.stderr.decode(errors="replace")[-2000:])
+            return None
+        except (OSError, subprocess.SubprocessError) as e:
+            _load_error = f"native build/load failed: {e}"
             return None
 
         u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -175,6 +214,12 @@ def _load():
 
 def is_available() -> bool:
     return _load() is not None
+
+
+def unavailable_reason() -> str | None:
+    """Why the library could not be loaded (None when it is loaded)."""
+    _load()
+    return _load_error
 
 
 def _buf(data: bytes):
@@ -391,8 +436,7 @@ def native_compress_hc_blocks(blocks, lens, level: int = 9):
 def resolver_threads() -> int:
     """Worker-thread count for the batched native entry points:
     LZ4TPU_THREADS env override, else the host's CPU count (blocks
-    are independent; resolve/decompress scale near-linearly with
-    cores -- on pod hosts this keeps one host feeding many chips)."""
+    are independent; resolve/decompress scale with cores)."""
     env = os.environ.get("LZ4TPU_THREADS")
     if env:
         return max(int(env), 1)
@@ -426,9 +470,8 @@ def native_resolve_blocks(comp, offs, lens, fcap: int,
     concurrent CALLS from multiple Python threads race on that cache
     (the internal worker threads do not).  Consume (or copy /
     device_put) the results before resolving again, or pass
-    ``reuse_buffers=False`` to own the arrays (costs ~3s of
-    first-touch page faults at bench scale -- the reason the cache
-    exists).  Guard rails: ``resolve_generation()`` returns a counter
+    ``reuse_buffers=False`` to own the arrays (each call then pays the
+    first-touch page faults the cache exists to avoid).  Guard rails: ``resolve_generation()`` returns a counter
     bumped by every reuse-mode call, so defensive callers can
     snapshot it with their views and assert staleness before use;
     setting ``ZIG_LZ4_TPU_RESOLVE_FRESH=1`` forces fresh arrays
@@ -447,9 +490,9 @@ def native_resolve_blocks(comp, offs, lens, fcap: int,
     lens = np.ascontiguousarray(lens, np.int64)
     nb = len(offs)
     # Reuse the big fragment arrays across calls: freshly-mmapped
-    # np.empty buffers cost ~3s of first-touch page faults per call at
-    # bench scale (measured), 10x the resolve itself.  The device
-    # decoder masks rows >= nfrag, so stale contents are harmless.
+    # np.empty buffers pay first-touch page faults on every call.  The
+    # device decoder masks rows >= nfrag, so stale contents are
+    # harmless.
     global _resolve_bufs, _resolve_gen
     key = (nb, fcap)
     if os.environ.get("ZIG_LZ4_TPU_RESOLVE_FRESH"):

@@ -1,12 +1,12 @@
 // zig_lz4_tpu native host runtime -- C++ implementation of the
 // canonical LZ4 block codec, xxHash32, and the sequence parser that
-// feeds the TPU decode path.
+// feeds the device decode path.
 //
 // This is a from-scratch implementation of the same canonical
 // algorithm as zig_lz4_tpu/ops/block.py (the Python oracle); outputs
 // are byte-identical and tests enforce that.  It plays the role the
 // reference implementation's compiled Zig plays on the host: wire
-// format serialization at memory bandwidth, so the TPU pipeline is
+// format serialization at memory bandwidth, so the device pipeline is
 // never bottlenecked on Python.
 //
 // Reference analogs (behavior, not code):
@@ -39,7 +39,7 @@ static const uint32_t P1 = 2654435761u, P2 = 2246822519u, P3 = 3266489917u,
 static inline uint32_t read32le(const uint8_t* p) {
     uint32_t v;
     std::memcpy(&v, p, 4);
-    return v;  // little-endian hosts only (x86/ARM/TPU hosts)
+    return v;  // little-endian hosts only (x86/ARM)
 }
 
 static inline uint16_t read16le(const uint8_t* p) {
@@ -431,7 +431,7 @@ int64_t lz4tpu_decompress_safe(const uint8_t* src, size_t n, uint8_t* dst,
 }
 
 // ---------------------------------------------------------------------
-// Sequence parser for the TPU decode path (host side of two-phase
+// Sequence parser for the device decode path (host side of two-phase
 // decode; the device does the gather-heavy reconstruction).
 // ---------------------------------------------------------------------
 

@@ -1,19 +1,14 @@
-"""TPU-native LZ4 block codec -- vectorized JAX/XLA implementation.
+"""Device LZ4 block codec -- vectorized JAX/XLA implementation.
 
 This is NOT a port of the reference's serial loops.  LZ4 coding is
-re-cast onto the primitives this TPU actually executes fast, chosen
-from on-chip measurements (v5e, forced-transfer timing):
-
-  * lax.sort        ~1.1 Gelem/s at batch 128 and nearly independent
-                    of operand count -> the workhorse.
-  * cumsum/cummax   ~3.7 Gelem/s    -> forward/backward fills.
-  * elementwise/roll  fast          -> everything else.
-  * gather/scatter  ~0.1 Gelem/s in EVERY formulation (XLA native and
-                    one-hot-MXU alike) -> banned from the hot path.
-
-The codec is therefore built **gather-free**: every data-dependent
-data movement is a sort (grouping, merging) or a packed cummax
-forward/reverse fill (broadcasting per-sequence fields to bytes).
+re-cast onto data-parallel primitives: multi-operand ``lax.sort`` for
+every data-dependent movement (grouping, merging), packed ``cummax`` /
+``cumsum`` forward and reverse fills for broadcasting per-sequence
+fields to bytes, and elementwise / roll arithmetic for the rest.  The
+hot path has no gathers and no floats: the sort-instead-of-gather
+choice was made on the accelerator the codec was first written for,
+and whether it still wins on the GPU waits to be measured there
+(ROADMAP Queue 1).
 
 ENCODE (``make_block_encoder``), per block, vmapped over blocks:
   1. ONE stable sort groups positions by their 4-byte string (fast
@@ -42,14 +37,10 @@ ENCODE (``make_block_encoder``), per block, vmapped over blocks:
      ride a ~blk/255-row pool).  No scatter, no gather, no ncap
      compaction sorts.
 
-DECODE (``decode_blocks_frags`` + host fragment resolver):
-  The byte-serial parse + LZ77 chain resolution runs on host (C++
-  native, capped-split fragments); the device reconstructs with
-  parity-keyed merges and round-bounded periodic passes, tiered by
-  fragment count / round depth.  A per-sequence pointer-jumping
-  decoder (``_decode_block``) covers dictionary/history cases the
-  fragment tiers skip.  A Pallas kernel path was measured and
-  retired (experiments/pallas_decode.py).
+DECODE lives in ops/jax_decode.py: the byte-serial parse and LZ77
+chain resolution run on the host (C++ native), and the device
+reconstructs each block with one parity-keyed merge (the T-map
+engine) or, as explicit options, the fragment engines.
 
 Wire format identical to the oracle in ops/block.py; tests
 cross-decode all backends.  reference wire behavior: src/lz4.zig
@@ -68,24 +59,15 @@ from jax import lax
 from ..constants import compress_bound
 
 # Persistent compilation cache: the device codec compiles one program
-# per (blk, hc, deep, batch) configuration at ~20-40s each on this
-# platform; caching them on disk makes every process after the first
-# (tests, experiments, bench, the driver's bench run) start warm.
-# Opt out with ZIG_LZ4_TPU_NO_CACHE=1; a user-set cache dir wins.
-if not os.environ.get("ZIG_LZ4_TPU_NO_CACHE"):
-    try:
-        if jax.config.jax_compilation_cache_dir is None:
-            # user-cache path: a package-relative dir would land in
-            # site-packages for installed copies (read-only / shared)
-            jax.config.update(
-                "jax_compilation_cache_dir",
-                os.path.join(os.path.expanduser(
-                    os.environ.get("XDG_CACHE_HOME", "~/.cache")),
-                    "zig_lz4_tpu", "jax"))
-            jax.config.update(
-                "jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:          # pragma: no cover - older jax configs
-        pass
+# per (blk, hc, deep, batch) configuration, so every process after the
+# first starts warm.  JAX reads JAX_COMPILATION_CACHE_DIR itself; only
+# when it is unset does the cache go to a fixed path in the checkout
+# (the path is part of each entry's key, so it must not move).
+if "JAX_COMPILATION_CACHE_DIR" not in os.environ:
+    jax.config.update(
+        "jax_compilation_cache_dir",
+        os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))), ".jax_cache"))
 
 __all__ = [
     "make_block_encoder", "make_block_decoder",
@@ -94,29 +76,24 @@ __all__ = [
 ]
 
 #: carried u32 windows -> exact match lengths up to 4 + 4*_W + 3.
-#: Measured on-chip (experiments/enc_w_sweep.py): ride-along operands
-#: are nearly free (W=2 -> 8 costs only ~5% encode time) while each
-#: halving of W loses ~1.7% ratio -- so keep the full window set.
+#: Each halving of W loses ~1.7% ratio; the ride-along operands'
+#: device cost on the GPU is not measured yet.
 _W = 8
 #: greedy-parse chunk width (positions per scan step)
 _K = 32
 #: HC lazy deferral depth: True = two-step (emit up to 2 literals to
 #: reach a strictly-more-profitable match), False = one-step.
-#: A/B-measured in experiments/enc_lazy2_probe.py.
 _LAZY2 = True
 #: HC positional fallback probes (one extra stable 4-byte grouping
-#: sort recovering short gap matches the lex orders miss); module
-#: flag for on-chip A/B timing, ratio effect measured in
-#: experiments/hc_ratio_gap.py.
+#: sort recovering short gap matches the lex orders miss); ratio
+#: effect measured in experiments/hc_ratio_gap.py.
 _FALLBACK = True
 #: scan unroll factor for the greedy parse
 _UNROLL = 8
 #: post-parse same-offset extension: pool rows / byte budget (HC mode;
-#: 0 disables).  See the `_EXT_POOL` block in _encode_block.
-#: Round-5 on-chip A/B (experiments/enc_ext32_chip.py + per-type CPU
-#: check): 512/32 produces BYTE-IDENTICAL output to 1024/64 on all
-#: five content types and identical corpus ratio (3.3178) at +7% L12
-#: speed (3.92 -> 3.67 ms/blk) -- adopted.
+#: 0 disables).  See the `_EXT_POOL` block in _encode_block.  512/32
+#: produces output byte-identical to 1024/64 on all five content types
+#: of the bench corpus, at a smaller pool.
 _EXT_POOL = 512
 _EXT_BYTES = 32
 #: price-aware parse (deep levels 10-12): replace greedy selection +
@@ -129,10 +106,10 @@ _EXT_BYTES = 32
 #: full length of each position's best candidate is optimal over the
 #: candidate set; truncation never needs separate prices.
 _PRICE_DP = True
-#: DP literal cost (x256 scale).  On-chip A/B (typed 4x64KB blocks):
-#: 256 (exact for runs < 15) beats 257 (amortized-escape biased) by
-#: 11B on 'code' with everything else within +-2B -- the escape bias
-#: pushed the DP into marginal matches -- so the exact value wins.
+#: DP literal cost (x256 scale).  256 (exact for runs < 15) beats 257
+#: (amortized-escape biased) by 11B on 'code' (typed 4x64KB blocks)
+#: with everything else within +-2B -- the escape bias pushed the DP
+#: into marginal matches -- so the exact value wins.
 _DP_LITC = 256
 #: DP cost ring size: match jumps longer than _DP_R are priced at
 #: their truncated length (reconstruction still takes the full
@@ -140,17 +117,13 @@ _DP_LITC = 256
 #: approximated, and emission merges same-offset continuations).
 _DP_R = 512
 #: extension/parse iterations.  None = auto by level: OFF for levels
-#: <= 9 (deep == 0) and 1 for the deep levels 10-12.  On-chip A/B
-#: (experiments/enc_ext_ab.py, 192x64KB bench-mix corpus): the pass
-#: costs 0.55-0.56 ms/blk for +0.12% corpus ratio at L9 (38.9 ->
-#: 29.2 MB/s) -- not worth it on the throughput levels -- while the
-#: deep levels keep it for the per-type win (code-content truncation
-#: 62-65% -> 0.2%, dev L12 1.22x -> 1.14-1.18x native HC9 output).
-#: iters=2 measured 0.0162 GB/s at L12 (< the 0.03 decision bar,
-#: docs/CHIP_QUEUE.md 3b) so deep stays at 1.  Set an int to force a
-#: count at every level (probe hook).
+#: <= 9 (deep == 0) and 1 for the deep levels 10-12.  At L9 the pass
+#: buys only +0.12% corpus ratio, so the throughput levels skip it;
+#: the deep levels keep it for the per-type win ('code' content
+#: truncation 62-65% -> 0.2%).  Its device cost on the GPU is not
+#: measured yet.  Set an int to force a count at every level (probe
+#: hook).
 _EXT_ITERS = None
-
 
 
 def _bits(v: int) -> int:
@@ -183,8 +156,7 @@ def fast_params(accel: int) -> tuple[int, int]:
     (src/lz4.zig:292, :332 -- ``step = searchMatchNb >> 6``); the
     device encoder has no serial probe loop, so the speed/ratio trade
     lives in the sort operands instead: the LCP window count W (each
-    halving loses ~1.7% ratio for ~5% speed,
-    experiments/enc_w_sweep.py) and the probe count (second
+    halving loses ~1.7% ratio) and the probe count (second
     sorted-order neighbor).  accel=1 -> (8, 2) full quality;
     2 -> (4, 2); 4 -> (2, 1); >= 8 -> (1, 1)."""
     accel = max(int(accel), 1)
@@ -262,7 +234,7 @@ def _encode_block(data, n, start, *, blk: int, stage: int = 0,
     s0 = jnp.where(idx > n - 4, jnp.uint32(0xFFFFFFFF), su[:blk])
     wins = [su[4 * k:4 * k + blk] for k in range(1, W + 1)]
     # backward window: bytes b[i-2..i-1] as LE u16 (high byte = b[i-1];
-    # a 4-byte window was measured: ~0 ratio gain, ~4% slower)
+    # a 4-byte window gains ~0 ratio)
     bb = jnp.pad(b.astype(jnp.uint32), (2, 2))
     wb16 = bb[:blk] | (bb[1:blk + 1] << 8)
     pack_iw = blk <= 65536
@@ -295,14 +267,11 @@ def _encode_block(data, n, start, *, blk: int, stage: int = 0,
             _, r_ = lax.sort((idxs, r_s), num_keys=1)
             return r_
 
-        # round-5 restructure: 8-KEY doubling rounds, first rank
-        # straight off the byte windows (32-byte order in one sort
-        # pair) -- fewer rank sorts than the round-4 4-key ladder at
-        # the same final depth.  On-chip A/B (enc_rank8_chip.py,
-        # quiet): PARITY, not a win -- L12 3.91 vs ~3.76 ms/blk at
-        # identical ratio (3.318/3.317), i.e. 8-key comparators cost
-        # about what the saved sorts cost; kept for the simpler
-        # construction, and because ratio is unchanged.
+        # 8-KEY doubling rounds, first rank straight off the byte
+        # windows (32-byte order in one sort pair): fewer rank sorts
+        # than a 4-key ladder at the same final depth and the same
+        # ratio; whether the wider comparators pay for the saved sorts
+        # on the GPU is not measured yet.
         r = ranksN((s0,) + tuple(wins[:7]))             # 32-byte rank
         if deep == 1:               # 128-byte grand order (L10)
             tier_list = [(32 * (k + 1), shl(r, 32 * k))
@@ -332,9 +301,9 @@ def _encode_block(data, n, start, *, blk: int, stage: int = 0,
     # next 4 bytes as a second key -> 8-byte lexicographic order, so
     # sorted-order neighbors (both directions) carry the LONGEST
     # common prefixes (suffix-array property).
-    # hc >= 1: 8-byte lex order; deeper key prefixes were measured on
-    # -chip -- a third key (12-byte order) costs nothing extra (the
-    # operand already rides) and sharpens long-match discovery.
+    # hc >= 1: 8-byte lex order plus a third key (12-byte order): the
+    # operand already rides, and the extra key sharpens long-match
+    # discovery.
     # deep >= 1: the grouping keys are the deepest rank + its shifts
     # (4 * depth bytes of exact lexicographic order); the fine
     # windows and the shallower rank tiers ride as operands.
@@ -616,9 +585,9 @@ def _encode_block(data, n, start, *, blk: int, stage: int = 0,
 
             def dstep(ring, xs):
                 # All data-dependent reads are small one-hot
-                # select-reduces, NOT gathers (dynamic gather measured
-                # ~0.1 Gelem/s on this chip -- a jnp.take here cost
-                # 7.6 ms/blk).  The index matrices are round-invariant
+                # select-reduces, NOT gathers (the gather-free choice;
+                # a jnp.take variant is not measured on the GPU yet).
+                # The index matrices are round-invariant
                 # (jumps don't change), so they build once per step;
                 # ring reads (jumps past the chunk) reduce once per
                 # step, in-chunk reads ((KD, KD) one-hot) per round.
@@ -756,7 +725,7 @@ def _encode_block(data, n, start, *, blk: int, stage: int = 0,
         # underestimated -- measured on 'code' content as 62-65% of
         # emitted matches truncated, ~10% of the block in lost
         # extension bytes, ~ALL of it running PAST the next chosen
-        # match's start (experiments/code_split_diag.py).  Recover
+        # match's start.  Recover
         # serial-parser semantics in two steps: (1) pool the chosen
         # matches whose effective end is capped and measure each TRUE
         # end with gathered 4-byte compares at its own offset; (2)
@@ -878,8 +847,8 @@ def _encode_block(data, n, start, *, blk: int, stage: int = 0,
     # offsets and per-byte roles all come from packed cummax fills and
     # cumsums over the position domain -- the ncap compaction sorts
     # and the literal-destination merge of the round-1 design are
-    # gone.  (Measured: sorts cost ~0.08 ms/blk each at B=64 while
-    # fills are ~10 us, so trading 5 sorts for ~14 fills wins.)
+    # gone: 5 sorts traded for ~14 fills, a trade that waits to be
+    # measured on the GPU.
     PB = _bits(blk)                  # idx+1, E+1, blk-idx fit PB bits
     S2 = 31 - PB                     # payload width for PB-prefixed packs
     # hi chunks (field >> 9) of cap-bounded fields must fit S2 bits
@@ -1107,8 +1076,8 @@ def level_params(level: int) -> tuple[int, int]:
     """Map a compression level to (hc probes, deep rank rounds).
 
     Levels <= 1: the fast nearest-2 finder.  Levels 2..9: suffix-order
-    probes = level over the 12-byte lexicographic sort (measured
-    diminishing returns past ~8; level 9 pays one extra probe pair).
+    probes = level over the 12-byte lexicographic sort (ratio returns
+    diminish past ~8; level 9 pays one extra probe pair).
     Levels 10..12: 8 probes over progressively deeper EXACT-rank
     orders -- 128 / 256 / 1024-byte lexicographic depth with exact
     long-match tiers (the device analog of the reference's optimal

@@ -1,4 +1,4 @@
-"""TPU-native LZ4 block decoders -- the decode half of the device
+"""Device LZ4 block decoders -- the decode half of the device
 codec (split out of jax_block.py, which keeps the encoder + price DP
 and re-exports every name here for back-compat).
 
@@ -16,9 +16,13 @@ cummax fills:
   * ``_decode_block_frags_chase``  pointer doubling (depth 2^k after
                                k merges -- the deep-tier engine)
 
+The production engine is the T-map one-merge decoder
+(``_decode_block_tmap``, fed by the native per-byte literal-source
+resolver); the engines above remain as explicit options.
+
 reference decode semantics: src/lz4.zig:89-251 (generic decoder),
 :870-957 (streaming prefix continuation).  See jax_block.py's module
-docstring for the measured primitive cost model that shaped these.
+docstring for the sort-instead-of-gather choice that shaped these.
 """
 
 from __future__ import annotations
@@ -354,8 +358,8 @@ def _decode_block_frags(comp, fdst, fsrc, fper, fphase, nfrag,
 
     All merges use PARITY-PACKED keys (publishers at 2k, queries at
     2k+1 -- unique keys, so no second sort key and no stable-sort
-    cost) and rank-prefixed chunk packs, measured ~2x faster per merge
-    than the round-1 field-per-operand layout.  reference decode
+    cost) and rank-prefixed chunk packs, which carry fewer operands
+    per merge than a field-per-operand layout.  reference decode
     semantics: src/lz4.zig:89-251.
     """
     i32 = jnp.int32
@@ -479,10 +483,9 @@ def _decode_block_frags_win(comp, fdst, fsrc, fper, fphase, nfrag,
         runs resolves from window fetches alone.
       * Leftover bytes (tiny fragments / mid-group period wraps) ride
         a POOL of per-byte queries, applied back to the dense state
-        with ONE pool-sized scatter per round (measured fine at this
-        size; the round-1 gather/scatter ban is about blk-sized
-        operands).  Measured uncovered-byte budgets (HC-class
-        streams, experiments/README.md): periodic side p90 < 120
+        with ONE pool-sized scatter per round (pool-sized, never
+        blk-sized).  Uncovered-byte budgets on HC-class streams of
+        the bench corpus: periodic side p90 < 120
         bytes at wins=2; literal side needs wins=3..4 on fast tiers
         and stays byte-granular (lit_wins=0) on the deep tier.
 
@@ -497,8 +500,7 @@ def _decode_block_frags_win(comp, fdst, fsrc, fper, fphase, nfrag,
     operands + ceil(2g/16) validity-mask operands); queries are per
     g-byte output group.  g=16 halves the per-round sort rows
     (queries dominate) at the cost of wider (free-ish) operand rows
-    and more pool pressure -- the wide-group lever from the round-4
-    chip queue.
+    and more pool pressure.
     """
     i32 = jnp.int32
     BIG = jnp.int32(1 << 28)
@@ -1159,8 +1161,8 @@ def _batched_frag_decoder_chase(blk: int, fcap: int, dense: int = 2,
 
 
 def win_tier_config(blk: int, fcap: int, rounds: int) -> dict:
-    """Measured per-tier windowed-decoder configuration (uncovered
-    -byte budgets on HC-class streams, experiments/README.md):
+    """Per-tier windowed-decoder configuration (uncovered-byte
+    budgets on HC-class streams of the bench corpus):
     periodic side needs only 2 windows + a few hundred pool slots;
     the literal side needs 3-4 windows on fast tiers and stays
     byte-granular on the match-dense deep tier."""

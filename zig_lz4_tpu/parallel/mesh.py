@@ -1,11 +1,13 @@
 """Device mesh helpers.
 
-The natural TPU decomposition of LZ4 is block-parallel: every frame
+The natural device decomposition of LZ4 is block-parallel: every frame
 block in ``.independent`` mode is its own compression problem
 (SURVEY.md section 2.5), so the canonical mesh is one dimension,
-``('blocks',)``, laid over all chips; multi-host runs shard the corpus
-over DCN and blocks over ICI.  There is no tensor/model axis -- the
-"model" (hash/candidate machinery) is tiny and replicated.
+``('blocks',)``, laid over all devices.  The GPUs of one host reach
+each other all to all, so the mesh follows the algorithm alone;
+multi-host runs shard the corpus over hosts and blocks over each
+host's devices.  There is no tensor/model axis -- the "model"
+(hash/candidate machinery) is tiny and replicated.
 """
 
 from __future__ import annotations

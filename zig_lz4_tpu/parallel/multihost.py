@@ -2,11 +2,11 @@
 
 Design: the corpus is sharded across hosts in whole frame blocks
 (64KB-4MB each).  Every host compresses its contiguous span of blocks
-on its local chips via :class:`ShardedFrameCodec`'s encoder (blocks
-data-parallel over ICI), then the variable-length compressed payloads
-are all-gathered across hosts (DCN) in frame order and host 0 -- or
+on its local devices via :class:`ShardedFrameCodec`'s encoder (blocks
+data-parallel within the host), then the variable-length compressed
+payloads are all-gathered across hosts in frame order and host 0 -- or
 every host, identically -- serializes the spec-conformant frame.  A
-shared dictionary, when given, is replicated to every host/chip (the
+shared dictionary, when given, is replicated to every host/device (the
 broadcast analog of the reference's loadDict, src/lz4.zig:798).
 
 Checksums: per-block xxHash32 checksums parallelize perfectly and are
@@ -15,8 +15,8 @@ sequential xxh32 stream, so it is computed only when ``content_hash``
 is requested (host-0 pass over the raw corpus) -- both layouts are
 spec-conformant (the content checksum is an optional frame feature).
 
-Single-process use works unchanged (process_count == 1); on a real
-pod slice call :func:`initialize` first (wraps
+Single-process use works unchanged (process_count == 1); across
+hosts call :func:`initialize` first (wraps
 ``jax.distributed.initialize``) so ``jax.devices()`` is the global
 device set.
 """
@@ -68,7 +68,7 @@ def _process_info():
 def _allgather_bytes(payload: bytes):
     """All-gather one bytes blob per process; returns list[bytes] in
     process order.  Uses a padded uint8 all-gather over the global
-    mesh (DCN between hosts)."""
+    mesh."""
     import jax
     from jax.experimental import multihost_utils
 
@@ -91,7 +91,7 @@ def _allgather_bytes(payload: bytes):
 
 class MultiHostFrameCodec:
     """Corpus -> one LZ4 frame, blocks sharded host-major then
-    chip-parallel; compressed blocks all-gathered in frame order."""
+    device-parallel; compressed blocks all-gathered in frame order."""
 
     def __init__(self, block_size_id=lz4f.BlockSizeID.max64KB,
                  block_checksum: bool = True,
@@ -104,7 +104,7 @@ class MultiHostFrameCodec:
         self.dict = bytes(dictionary)[-WINDOW_SIZE:] if dictionary \
             else None
         if local_mesh is None:
-            # each host drives its LOCAL chips only: the span split is
+            # each host drives its LOCAL devices only: the span split is
             # the cross-host parallelism, the mesh the within-host one
             # (a global mesh would make per-host device_puts disagree)
             import jax
@@ -133,7 +133,7 @@ class MultiHostFrameCodec:
         n_blocks = max((len(data) + bs - 1) // bs, 0)
         lo, hi = self._local_span(n_blocks)
 
-        # local chip-parallel encode of this host's span
+        # local device-parallel encode of this host's span
         records = bytearray()
         for b0 in range(lo, hi, 256):
             b1 = min(b0 + 256, hi)
@@ -149,7 +149,7 @@ class MultiHostFrameCodec:
                 if self.block_checksum:
                     records += xxh32(stored).to_bytes(4, "little")
 
-        # ordered gather across hosts (DCN)
+        # ordered gather across hosts
         parts = _allgather_bytes(bytes(records))
 
         info = lz4f.FrameInfo(
@@ -170,8 +170,8 @@ class MultiHostFrameCodec:
         """Multi-host parallel decode of an independent-mode frame.
 
         Every host scans the (cheap) block-record structure, decodes
-        its host-major span of blocks on its local chips, and the
-        decoded spans are all-gathered (DCN) in process order; every
+        its host-major span of blocks on its local devices, and the
+        decoded spans are all-gathered in process order; every
         host returns the identical corpus.  Content checksum /
         content size are verified on the assembled corpus.
         """
@@ -185,7 +185,7 @@ class MultiHostFrameCodec:
         bs = info.block_size_id.to_block_size()
 
         # host scan: split frame into block records (all hosts run the
-        # identical scan; it is >10 GB/s of pointer walking)
+        # identical scan; it is cheap pointer walking)
         records = []
         while True:
             if pos + 4 > len(frame):

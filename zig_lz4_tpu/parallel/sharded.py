@@ -1,6 +1,6 @@
 """Sharded frame compression/decompression over a ('blocks',) mesh.
 
-The TPU-parallel frame pipeline (SURVEY.md section 2.5):
+The device frame pipeline (SURVEY.md section 2.5):
 
   compress:  chunk corpus -> [B, blk] block matrix sharded over the
              mesh -> per-device vectorized encode (ops/jax_block) with
@@ -8,23 +8,27 @@ The TPU-parallel frame pipeline (SURVEY.md section 2.5):
              ordered host gather of (payload, length) -> wire-format
              frame assembly on the host (C++ native checksums).
 
-  decompress: host splits the frame into block payloads + parses
-             sequences (native runtime) -> [B, ...] arrays sharded over
-             the mesh -> device pointer-doubling reconstruction ->
-             ordered gather -> checksum verification.
+  decompress: host splits the frame into block payloads and resolves
+             each into a per-byte literal-source map (T-map, native
+             runtime) -> [B, ...] arrays sharded over the mesh -> one
+             parity-keyed device merge per block -> ordered gather ->
+             checksum verification.
 
 Block-independent frames shard freely; linked frames have a sequential
-64KB dependency chain and fall back to the streaming host decoder
-(reference cannot decode them at all -- SURVEY.md section 2.3).
+64KB dependency chain, which the host resolves structurally so the
+device decodes whole windows of blocks at a time (reference cannot
+decode them at all -- SURVEY.md section 2.3).
 
-Multi-host: the same code runs under ``jax.distributed`` with a global
-mesh -- the block matrix is sharded host-major so each host feeds its
-local shard, the dictionary is replicated over DCN+ICI, and the
-ordered gather is the final frame serialization point.
+Multi-host: parallel/multihost.py runs this codec on each host's local
+devices and gathers the compressed spans in frame order.
+
+Every codec counts the blocks each route carried in ``routes``, so a
+caller can check that the device did the work.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 
@@ -48,11 +52,8 @@ _UNCOMPRESSED_BIT = 0x80000000
 #: fragment-decoder tiers: (fcap divisor of block size, max rounds).
 #: Most blocks fit the cheap tier; match-dense blocks go to wider /
 #: deeper tiers; the rest fall back to the host codec.  The resolver's
-#: split_max trades fragment count against round depth (measured in
-#: experiments/resolve_stats.py).  The deep (bs, 12-round) tier gives
-#: scale-out coverage (67% of device-encoded 64KB blocks fit it,
-#: measured); on one chip the host codec outruns it for the blocks it
-#: covers -- exactly the hybrid split SPEED_OF_LIGHT.md argues.
+#: split_max trades fragment count against round depth.  The deep
+#: (bs, 12-round) tier runs only on multi-device meshes.
 _FRAG_TIERS = ((8, 2), (4, 8), (1, 12))
 #: narrow-fcap fallback ladder for BIG blocks (1MB/4MB), used when no
 #: standard tier's pack geometry fits: at a QUANTIZED fetch buffer
@@ -67,9 +68,9 @@ _FRAG_RMAX = _FRAG_TIERS[-1][1]
 #: The pointer-doubling decoder reaches depth 2^(dense+doublings) at a
 #: fixed merge count, so the resolver keeps natural chains
 #: (round_limit=64) instead of splitting matches to bound rounds.
-#: Measured coverage of 64KB device streams under this resolve
-#: (experiments/chase_tier_study.py): HC-9 blocks 100% at fcap=bs/2,
-#: fast blocks 100% at fcap=bs, depth <= 64 for both.  The trailing
+#: Coverage of 64KB device streams under this resolve: HC-9 blocks
+#: 100% at fcap=bs/2, fast blocks 100% at fcap=bs, depth <= 64 for
+#: both (bench corpus).  The trailing
 #: narrow (bs/32) tier never fires at 64KB (earlier tiers take
 #: everything first) -- it exists for 1MB blocks, where only the
 #: bs/32 pack geometry fits int32 and highly-compressible blocks
@@ -92,17 +93,16 @@ _SUBH = 65536
 def _chase_config(depth: int) -> tuple[int, int, int]:
     """(dense, doublings, qcap) reaching 2^(dense+dbl) >= ``depth``.
 
-    Frontier statistics of real HC-9 streams
-    (experiments/chase_depth_sim.py): every measured block converges
-    within 5 doublings, and after 4 dense rounds the worst frontier
-    is ~1.1K bytes -- so depth <= 32 runs PURE-DENSE (no pool
-    machinery, no scatter), and deeper budgets add pool rounds that
-    in practice fire once with a 4K pool.  (The naive dense=2 +
-    blk/8 pool would overflow on 12.5% of blocks -- match-dense
-    streams still carry ~40K unconverged bytes at that point.)
-    The budget rounds UP: a 12-round resolve needs depth 16, not 8
-    (round-3 profile ran the deep tier at depth 8 and paid a 1.6%
-    self-validation reroute, experiments/dec_chase_profile.py)."""
+    Frontier statistics of HC-9 streams of the bench corpus: every
+    block converges within 5 doublings, and after 4 dense rounds the
+    worst frontier is ~1.1K bytes -- so depth <= 32 runs PURE-DENSE
+    (no pool machinery, no scatter), and deeper budgets add pool
+    rounds that in practice fire once with a 4K pool.  (The naive
+    dense=2 + blk/8 pool would overflow on 12.5% of blocks --
+    match-dense streams still carry ~40K unconverged bytes at that
+    point.)  The budget rounds UP: a 12-round resolve needs depth 16,
+    not 8 (at depth 8 1.6% of deep-tier blocks fail self-validation
+    and reroute)."""
     e = max((depth - 1).bit_length(), 1)    # 2^e >= depth
     dense = min(e, 5)
     dbl = e - dense
@@ -135,6 +135,12 @@ def _sharded_decoder(mesh: Mesh, blk: int, ccap: int, nseq_cap: int,
                    out_shardings=(s2, s1))
 
 
+def _native_missing():
+    from ..native import unavailable_reason
+    raise RuntimeError("device decode needs the native host library: "
+                       f"{unavailable_reason()}")
+
+
 def _parse_block(payload: bytes, nseq_cap: int, history_len: int = 0):
     """Sequence parse via the native runtime, Python fallback."""
     from ..native import native_parse_sequences
@@ -146,11 +152,16 @@ def _parse_block(payload: bytes, nseq_cap: int, history_len: int = 0):
 
 
 class ShardedFrameCodec:
-    """Data-parallel LZ4 frame codec over a TPU device mesh.
+    """Data-parallel LZ4 frame codec over a device mesh.
 
     Produces spec-conformant frames in ``independent`` block mode
     (the parallel fast path); decodes independent frames in parallel
-    and linked frames via the streaming host decoder.
+    and linked frames window by window on the device.
+
+    ``routes`` counts the blocks each route carried since construction:
+    ``encode_device`` / ``encode_host``, ``decode_device`` /
+    ``decode_host``, and ``decode_stored`` for store-uncompressed
+    records, which are copied as they are.
     """
 
     def __init__(self, mesh: Mesh | None = None,
@@ -165,19 +176,18 @@ class ShardedFrameCodec:
         #: suffix-order finder (ops/jax_block hc mode) -- same wire
         #: format, better ratio, decodable by any LZ4 decoder
         self.level = int(compression_level)
-        #: decode engine: "tmap" (default, round 5) = host per-byte
+        #: decode engine: "tmap" (default) = host per-byte
         #: literal-source maps (native lz4tpu_resolve_tmap: full path
-        #: compression at memcpy class) + ONE parity-keyed device
-        #: merge per block -- no rounds, no tiers, 100% coverage
-        #: (experiments/dec_tmap_chip.py).  "mixed" = the round-4
+        #: compression) + ONE parity-keyed device merge per block --
+        #: no rounds, no tiers, 100% coverage.  "mixed" = the
         #: fragment ladder (windowed merges on the 2-round tier,
-        #: pointer-doubling chase deeper -- measured per-tier winners,
-        #: docs/CHIP_QUEUE.md round 4); "win" / "chase" force one
+        #: pointer-doubling chase deeper); "win" / "chase" force one
         #: fragment engine everywhere ("chase" also switches to the
         #: natural-chain resolve with its 100%-coverage single tier).
         if decode_engine not in ("tmap", "win", "chase", "mixed"):
             raise ValueError(f"unknown decode_engine {decode_engine!r}")
         self.decode_engine = decode_engine
+        self.routes: collections.Counter[str] = collections.Counter()
         self.hc, self.deep = level_params(self.level)
         self.mesh = mesh or blocks_mesh()
         self.n_devices = self.mesh.devices.size
@@ -252,6 +262,7 @@ class ShardedFrameCodec:
         per_block: list[list[bytes]] = [[] for _ in raws]
         for (bi, _h, _s), p in zip(entries, payloads):
             per_block[bi].append(p)
+        self.routes["encode_device"] += len(raws)
         return [concat_streams(ps) for ps in per_block]
 
     def _encode_span(self, span: bytes) -> list[tuple[bytes, bytes]]:
@@ -271,6 +282,7 @@ class ShardedFrameCodec:
             from ..ops.block import compress_fast
             comps = [hc_mod.compress_hc(r, self.level) if self.level > 1
                      else compress_fast(r) for r in raws]
+            self.routes["encode_host"] += nb
             return list(zip(raws, comps))
         nb_pad = -(-nb // self.n_devices) * self.n_devices
         windows = np.zeros((nb_pad, self.window), np.uint8)
@@ -288,6 +300,7 @@ class ShardedFrameCodec:
                 np.frombuffer(blkdata, np.uint8)
             lens[k] = self.dcap + len(blkdata)
         payloads, plens = self._encode_batch(windows, lens, starts)
+        self.routes["encode_device"] += nb
         return [(raws[k], payloads[k, :int(plens[k])].tobytes())
                 for k in range(nb)]
 
@@ -305,6 +318,7 @@ class ShardedFrameCodec:
             if self._device_big_capable():
                 return self._compress_frame_big(data, info)
             prefs = lz4f.Preferences(frame_info=info)
+            self.routes["encode_host"] += -(-len(data) // self.block_size)
             return lz4f.compress_frame(data, prefs,
                                        dictionary=self.dict or None)
         bs = self.block_size
@@ -338,6 +352,7 @@ class ShardedFrameCodec:
             # unused pad rows: n == start -> zero-length output
             lens[nb:] = self.dcap
             payloads, plens = self._encode_batch(windows, lens, starts)
+            self.routes["encode_device"] += nb
             for k in range(nb):
                 raw = raws[k]
                 comp = payloads[k, :int(plens[k])].tobytes()
@@ -497,9 +512,10 @@ class ShardedFrameCodec:
                 pos += 4
                 if xxh32(payload) != expect:
                     raise E.BlockChecksumInvalid("block checksum")
-            if len(payload) > PCQ:
-                return None      # host streaming decoder takes over
             payloads.append((payload, uncompressed))
+        if any(len(p) > PCQ for p, _u in payloads):
+            self.routes["decode_host"] += len(payloads)
+            return None          # host streaming decoder takes over
 
         # window assembly: greedy under the payload and output budgets
         windows: list[tuple[int, int]] = []      # [b0, b1) record spans
@@ -543,7 +559,7 @@ class ShardedFrameCodec:
                 dict_len=dlen, total_cap=NOUT, blk_cap=bs,
                 dict_base=H - dlen)
             if r is None:
-                return None      # native runtime unavailable
+                _native_missing()
             T, _olens, total = r
             # T rows past ``total`` are uninitialized; the device step
             # masks them via total_len (dead rows sort to the end)
@@ -556,6 +572,7 @@ class ShardedFrameCodec:
 
         out_parts = [np.asarray(o)[:t].tobytes()
                      for o, t in zip(outs, win_totals)]
+        self.routes["decode_device"] += len(payloads)
         chash = xxh32_stream() if info.content_checksum else None
         if chash is not None:
             for part in out_parts:
@@ -576,18 +593,17 @@ class ShardedFrameCodec:
         return content
 
     def _decode_tmap(self, payloads: list, bs: int, comp_idx: list,
-                     results: list) -> bool:
-        """T-map decode of compressed records -- the round-5 default
-        engine: host per-byte literal-source maps (full path
-        compression, native lz4tpu_resolve_tmap) + ONE parity-keyed
-        device merge per block, 100% coverage, no convergence budget.
+                     results: list) -> None:
+        """T-map decode of compressed records -- the default engine:
+        host per-byte literal-source maps (full path compression,
+        native lz4tpu_resolve_tmap) + ONE parity-keyed device merge
+        per block, 100% coverage, no convergence budget.
 
-        Fills ``results`` in place; returns False when the native
-        resolver is unavailable (caller falls back to the fragment
-        ladder).  Blocks whose payload exceeds every supported fetch
-        quantum (1MB/4MB incompressible blocks) or that overrun the
-        block size stay None for the host routes.  reference decode
-        semantics: src/lz4.zig:89-251."""
+        Fills ``results`` in place; raises when the native resolver is
+        unavailable.  Blocks whose payload exceeds every supported
+        fetch quantum (1MB/4MB incompressible blocks) or that overrun
+        the block size stay None for the host routes.  reference
+        decode semantics: src/lz4.zig:89-251."""
         from ..native import native_resolve_tmap
         from ..ops.jax_block import (_batched_tmap_decoder,
                                      device_tmap_decoder_supports)
@@ -595,11 +611,11 @@ class ShardedFrameCodec:
         quanta = [q for q in (bs // 4, bs // 2, ccap)
                   if device_tmap_decoder_supports(bs, self.dcap + q)]
         if not quanta:
-            return True          # no device geometry: host takes all
+            return               # no device geometry: host takes all
         q_max = max(quanta)
         concat = b"".join(payloads[k][0] for k in comp_idx)
         if not concat:
-            return True
+            return
         offs64 = np.zeros(len(comp_idx), np.int64)
         lens64 = np.zeros(len(comp_idx), np.int64)
         cpos = 0
@@ -610,7 +626,7 @@ class ShardedFrameCodec:
         r = native_resolve_tmap(concat, offs64, lens64, bs,
                                 hist_len=self.dcap)
         if r is None:
-            return False
+            _native_missing()
         T, olens = r
         elig = [j for j in range(len(comp_idx))
                 if olens[j] >= 0 and lens64[j] <= q_max]
@@ -644,17 +660,18 @@ class ShardedFrameCodec:
             for jj, j in enumerate(grp):
                 results[comp_idx[j]] = outs[jj, :int(olens[j])] \
                     .tobytes()
-        return True
+        self.routes["decode_device"] += len(elig)
 
     def _decode_records(self, payloads: list, bs: int) -> list:
         """Decode a list of (payload, uncompressed) block records of an
         independent-mode frame into raw blocks, device-batched.
 
-        Preferred engine: host fragment resolution + round-bounded
-        device merges, tiered by fragment count and round depth; the
-        fetch buffer is [dictionary | payload] so dictionary frames
-        decode on-device too.  Blocks exceeding every tier fall back
-        to the host codec (rare, match-dense).
+        The default T-map engine takes every block whose payload fits
+        a device fetch quantum; the fragment engines, when selected,
+        tier blocks by fragment count and round depth.  The fetch
+        buffer is [dictionary | payload] so dictionary frames decode
+        on-device too.  Blocks beyond every device geometry take a
+        host route, counted in ``routes``.
         """
         ccap = compress_bound(bs)
         nseq_cap = MAX_SEQS(bs)
@@ -663,23 +680,19 @@ class ShardedFrameCodec:
         for k, (p, u) in enumerate(payloads):
             if u:
                 results[k] = p
+        self.routes["decode_stored"] += len(payloads) - len(comp_idx)
 
-        fetch_cap = self.dcap + ccap
         # keep only tiers whose pack geometry fits this block size --
         # e.g. at 256KB blocks fcap = bs/2 exceeds the chunk widths,
         # but bs/4 still fits, so big blocks keep a device path.
         # The deep capability tier (match-dense blocks, many rounds)
-        # only pays off when chips outnumber the host core: on a
-        # single-device mesh the host codec outruns it ~10x for
-        # exactly those blocks (docs/SPEED_OF_LIGHT.md), so the
-        # hybrid routes them hostward there.
+        # runs only on multi-device meshes; on one device the host
+        # codec takes those blocks.
         eng = self.decode_engine
         if eng == "tmap":
-            if not comp_idx or self._decode_tmap(payloads, bs,
-                                                 comp_idx, results):
-                eng = "none"     # done; leftovers take the host routes
-            else:
-                eng = "mixed"    # native runtime missing: ladder
+            if comp_idx:
+                self._decode_tmap(payloads, bs, comp_idx, results)
+            eng = "none"         # leftovers take the host routes
         chase = eng == "chase"
         if eng == "none":
             use = ()
@@ -774,8 +787,8 @@ class ShardedFrameCodec:
             # payloads are far smaller than compress_bound(bs) -- so
             # size each batch's buffer to the smallest quantum that
             # fits its largest payload (bs/4 at ratio >= 4, bs/2 at
-            # >= 2, else the full bound).  Measured: halving fetch
-            # rows cuts the literal merge roughly in half.  Shrinking
+            # >= 2, else the full bound), which halves the merge rows
+            # at each step down.  Shrinking
             # a fetch buffer only relaxes the pack geometry (see
             # _frag_geometry), and every tier member's payload fits
             # that tier's supported quantum by construction (tier_q).
@@ -788,9 +801,9 @@ class ShardedFrameCodec:
                     fetch_t = self.dcap + next(
                         (q for q in quanta if q >= need), ccap)
                     # per-tier engine: windowed for the shallow tier,
-                    # chase for the deep tiers in mixed mode (measured
-                    # per-tier winners); self-validation flags route
-                    # the rare failures onward to the host codec.
+                    # chase for the deep tiers in mixed mode;
+                    # self-validation flags route the rare failures
+                    # onward to the host codec.
                     if chase or (mixed and rmax > 2):
                         dn, dbl, qc = _chase_config(rmax)
                         dec = _batched_frag_decoder_chase(
@@ -799,9 +812,7 @@ class ShardedFrameCodec:
                     else:
                         use_win = device_win_decoder_supports(
                             bs, fcap_t, fetch_t)
-                        # wide groups on the shallow tier: measured
-                        # +5.4% on-chip (44.1 -> 46.5 MB/s at full
-                        # coverage, experiments/dec_wide_group.py)
+                        # wide groups on the shallow tier
                         wg = 16 if rmax <= 2 else 8
                         dec = (_batched_frag_decoder_win(bs, fcap_t,
                                                          rmax, g=wg)
@@ -833,6 +844,7 @@ class ShardedFrameCodec:
                         if oks is None or oks[j]:
                             results[k] = outs[j, :int(olens[jmap[k]])] \
                                 .tobytes()
+                            self.routes["decode_device"] += 1
 
         rest = [k for k in comp_idx if results[k] is None]
         if rest and self.dcap and (compress_bound(bs) + self.dcap
@@ -844,11 +856,12 @@ class ShardedFrameCodec:
             for k in rest:
                 results[k] = decompress_safe_using_dict(
                     payloads[k][0], bs, self.dict)
+            self.routes["decode_host"] += len(rest)
             rest = []
         if rest and not self.dcap:
             # pathological blocks (fragment explosion / deep periodic
-            # nesting): the host codec outruns device pointer-jumping
-            # on these by ~10x, and they are rare -- route them there.
+            # nesting) and blocks beyond every device geometry: the
+            # host codec takes them.
             from ..native import native_decompress_blocks
             concat2 = b"".join(payloads[k][0] for k in rest)
             ro = np.zeros(len(rest), np.int64)
@@ -863,6 +876,7 @@ class ShardedFrameCodec:
                 ho, hol = hr
                 for j, k in enumerate(rest):
                     results[k] = ho[j, :int(hol[j])].tobytes()
+                self.routes["decode_host"] += len(rest)
                 rest = []
 
         for c0 in range(0, len(rest), batch):
@@ -904,5 +918,6 @@ class ShardedFrameCodec:
             olens = np.asarray(olens)
             for j, k in enumerate(group):
                 results[k] = outs[j, :int(olens[j])].tobytes()
+            self.routes["decode_device"] += len(group)
 
         return results
